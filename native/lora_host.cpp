@@ -1,6 +1,6 @@
-// Native host runtime for the TPU LoRa framework.
+// Native host runtime for the JAX LoRa framework.
 //
-// The device (TPU) owns the DSP compute path; this library owns the
+// The device (through JAX) owns the DSP compute path; this library owns the
 // host-side runtime the reference implements in C/C++: AES-128 + CMAC for
 // LoRaWAN MIC (reference: src/lorawan/aes.c vendored tiny-AES-c +
 // src/lorawan/lorawan.cpp:15-98), the byte-level codec fast path

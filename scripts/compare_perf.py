@@ -7,7 +7,7 @@ pass/fail contract — exit 2 plus the literal ``REGRESSION DETECTED`` /
 with the reference's gate so baselines diff across implementations
 (reference: scripts/compare_perf.py semantics).  The implementation is
 this repo's own: typed rows, argparse, and an optional tolerance knob
-the reference lacks (useful for wall-clock jitter on shared TPU hosts).
+the reference lacks (useful for wall-clock jitter on shared hosts).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Generate golden vectors with the TPU library + SHA256 manifest.
+"""Generate golden vectors with this library + SHA256 manifest.
 
 Mirrors the reference's scripts/generate_lora_phy_vectors.py /
 generate_vectors.sh: run the vector_dump stage dumper for each requested
@@ -8,7 +8,7 @@ configuration, base64-encode the binary stages, and write a
 diff vector trees across implementations.
 
 Usage:
-    python scripts/generate_vectors.py --out vectors/tpu \
+    python scripts/generate_vectors.py --out vectors/jax \
         --sf 7 --sf 9 --sf 12 --bytes 16 --seed 1 [--cfo-bins 0.2]
 """
 from __future__ import annotations
@@ -31,10 +31,10 @@ def sha256(path: Path) -> str:
 def generate(out_root: Path, sfs, nbytes: int, seed: int, bw: int, osr: int,
              window: str, cfo_bins: float, time_offset: float) -> dict:
     """Run the stage dumper per SF; return the manifest dict."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.runners import (
+    from lora_sdr_lightweight_standalone_library_clean.runners import (
         vector_dump)
 
-    manifest = {"generator": "lora_sdr_lightweight_standalone_library_clean_tpu",
+    manifest = {"generator": "lora_sdr_lightweight_standalone_library_clean",
                 "seed": seed, "bytes": nbytes, "osr": osr, "bw": bw,
                 "window": window, "cfo_bins": cfo_bins,
                 "time_offset": time_offset, "configs": []}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Static + runtime hygiene scan — the TPU analog of scripts/scan_allocs.sh.
+"""Static + runtime hygiene scan — the JAX analog of scripts/scan_allocs.sh.
 
 The reference enforces zero runtime allocation by grepping for allocator
 calls (scan_allocs.sh).  The equivalent steady-state hazards in a JAX
@@ -19,7 +19,7 @@ import sys
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent / \
-    "lora_sdr_lightweight_standalone_library_clean_tpu"
+    "lora_sdr_lightweight_standalone_library_clean"
 
 HOT_MODULES = ["ops/chirp.py", "ops/detect.py", "ops/dft.py",
                "models/modem.py", "models/tones.py"]
@@ -45,7 +45,7 @@ def main() -> int:
             "import jax; jax.config.update('jax_platforms','cpu')\n"
             "import sys; sys.path.insert(0, %r)\n"
             "import numpy as np\n"
-            "import lora_sdr_lightweight_standalone_library_clean_tpu as L\n"
+            "import lora_sdr_lightweight_standalone_library_clean as L\n"
             "p = L.LoraParams(sf=7)\n"
             "traces = [0]\n"
             "import jax\n"

@@ -30,8 +30,8 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import functools  # noqa: E402
 
-import lora_sdr_lightweight_standalone_library_clean_tpu as L  # noqa: E402
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel import (  # noqa: E402
+import lora_sdr_lightweight_standalone_library_clean as L  # noqa: E402
+from lora_sdr_lightweight_standalone_library_clean.parallel import (  # noqa: E402
     distributed as D)
 
 ok = D.init_distributed(coordinator_address=f"localhost:{port}",
@@ -74,9 +74,9 @@ assert float(rate) == 1.0, float(rate)
 np.testing.assert_array_equal(D.allgather(dec), payloads)
 
 # --- 2. streaming receiver over 'sp' ----------------------------------
-from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (  # noqa: E402
+from lora_sdr_lightweight_standalone_library_clean.models.modem import (  # noqa: E402
     crc_sx1272)
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel.receiver import (  # noqa: E402
+from lora_sdr_lightweight_standalone_library_clean.parallel.receiver import (  # noqa: E402
     receive_stream, packet_samples)
 
 

@@ -79,3 +79,55 @@ def deinterleave_seq(symbols, ppm, rdd):
                 out[blk * ppm + dst] |= (s & 1) << bit
                 s >>= 1
     return out
+
+
+def stream_scan_ref(sr, si, sf, osr, bw_scale, stride):
+    """Per-window complex128 np.fft reference of ``stream_scan``.
+
+    Window w starts at sample w*stride of the stream followed by one
+    symbol of zeros; its phase-0 decimated samples are multiplied by the
+    reference down-chirp (genChirp with f0=0, down=True: no frequency wrap
+    occurs, so its phase is -(m*fmin + fstep*m*(m+1)/2) after m steps) and
+    transformed.  Returns (index, power dB, noise dB, second-largest
+    |bin|^2 / largest) per window.
+    """
+    n = 1 << sf
+    step = n * osr
+    x = np.asarray(sr, np.float64) + 1j * np.asarray(si, np.float64)
+    ext = np.concatenate([x, np.zeros(step)])
+    windows = x.size // stride
+    m = np.arange(0, step, osr, dtype=np.int64) + 1     # steps at i*osr
+    num = np.mod(m * n * osr - m * (m + 1), 2 * n * osr * osr)
+    dc = np.exp(1j * np.pi * bw_scale * num / (n * osr * osr))
+    out = []
+    for lo in range(0, windows, 4096):
+        w = np.arange(lo, min(lo + 4096, windows))
+        z = ext[w[:, None] * stride + np.arange(n)[None, :] * osr] * dc
+        mag2 = np.abs(np.fft.fft(z, axis=-1)) ** 2
+        top2 = np.sort(mag2, axis=-1)[:, -2:]
+        scale = 20.0 * np.log10(n)
+        with np.errstate(divide="ignore"):
+            out.append((np.argmax(mag2, axis=-1),
+                        10.0 * np.log10(top2[:, 1]) - scale,
+                        10.0 * np.log10(np.maximum(mag2.sum(-1) - top2[:, 1],
+                                                   0.0)) - scale,
+                        top2[:, 0] / top2[:, 1]))
+    return tuple(np.concatenate(c) for c in zip(*out))
+
+
+def timing_shifted_windows_ref(x, t_off, step, osr):
+    """Per-symbol windows with the reference's timing-shift clamps
+    (phy.cpp:209-216): symbol s reads from s*step + t_off unless that
+    window would leave the buffer, in which case it reads from s*step.
+    Returns (S, step) full-rate windows and (S, step/osr) decimated ones."""
+    count = x.shape[-1]
+    rows = []
+    for s in range(count // step):
+        base = s * step
+        if t_off > 0 and base + t_off + step <= count:
+            base += t_off
+        elif t_off < 0 and -t_off <= base:
+            base += t_off
+        rows.append(x[base:base + step])
+    full = np.stack(rows)
+    return full, full[:, ::osr]

@@ -8,7 +8,7 @@ import base64
 import numpy as np
 import pytest
 
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops import codes
+from lora_sdr_lightweight_standalone_library_clean.ops import codes
 import oracle
 
 

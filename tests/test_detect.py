@@ -2,16 +2,12 @@
 import numpy as np
 import pytest
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops.dft import (
+from lora_sdr_lightweight_standalone_library_clean.ops.dft import (
     dft_ri, dft_factors)
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops.detect import detect_ri
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops.chirp import (
+from lora_sdr_lightweight_standalone_library_clean.ops.detect import detect_ri
+from lora_sdr_lightweight_standalone_library_clean.ops.chirp import (
     downchirp_ri, modulate_ri, exact_prefix_sum_mod)
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
+import lora_sdr_lightweight_standalone_library_clean as L
 
 
 @pytest.mark.parametrize("n", [4, 128, 256, 512, 1024, 2048, 4096])

@@ -1,4 +1,4 @@
-"""Multi-host distributed layer (VERDICT r1 #2).
+"""Multi-host distributed layer.
 
 Launches a real 2-process x 4-virtual-CPU-device jax.distributed cluster
 (coordinator + Gloo collectives over localhost) and runs the full sharded
@@ -15,8 +15,6 @@ import numpy as np
 import pytest
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -63,7 +61,7 @@ def test_two_process_cluster_runs_sharded_pipeline():
 def test_global_mesh_single_process():
     """Single-process fallback: host axis has size 1... or the virtual
     host reshape used by dryrun_multichip stays consistent."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.parallel import (
+    from lora_sdr_lightweight_standalone_library_clean.parallel import (
         distributed as D)
     mesh = D.global_mesh(dp=4, sp=2)
     assert dict(mesh.shape) == {"host": 1, "dp": 4, "sp": 2}
@@ -80,8 +78,8 @@ def test_channel_sharding_zero_collectives():
     each device demodulates its own channels (the layout that makes DCN
     scaling linear)."""
     import jax.numpy as jnp
-    import lora_sdr_lightweight_standalone_library_clean_tpu as L
-    from lora_sdr_lightweight_standalone_library_clean_tpu.parallel import (
+    import lora_sdr_lightweight_standalone_library_clean as L
+    from lora_sdr_lightweight_standalone_library_clean.parallel import (
         distributed as D)
 
     mesh = D.global_mesh(dp=8, sp=1)

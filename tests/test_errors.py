@@ -8,12 +8,8 @@ import errno
 import numpy as np
 import pytest
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
-from lora_sdr_lightweight_standalone_library_clean_tpu.utils.errors import (
+import lora_sdr_lightweight_standalone_library_clean as L
+from lora_sdr_lightweight_standalone_library_clean.utils.errors import (
     InvalidArgumentError, RangeError, LoraError)
 
 
@@ -78,7 +74,7 @@ def test_error_hierarchy():
 def test_shipped_profiles_match_stock():
     """The shipped profiles.yaml parses (reference subset format,
     tests/profiles.yaml) and stays in sync with STOCK_PROFILES."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.utils.config import (
+    from lora_sdr_lightweight_standalone_library_clean.utils.config import (
         PROFILES_PATH)
     loaded = L.load_profiles(PROFILES_PATH)
     assert len(loaded) == len(L.STOCK_PROFILES) == 7

@@ -9,13 +9,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lora_sdr_lightweight_standalone_library_clean_tpu.models import frame
-from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (
+from lora_sdr_lightweight_standalone_library_clean.models import frame
+from lora_sdr_lightweight_standalone_library_clean.models.modem import (
     modulate)
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops import codes
-from lora_sdr_lightweight_standalone_library_clean_tpu.utils.config import (
+from lora_sdr_lightweight_standalone_library_clean.ops import codes
+from lora_sdr_lightweight_standalone_library_clean.utils.config import (
     LoraParams)
-from lora_sdr_lightweight_standalone_library_clean_tpu.utils.errors import (
+from lora_sdr_lightweight_standalone_library_clean.utils.errors import (
     InvalidArgumentError)
 
 
@@ -153,15 +153,15 @@ def test_padded_decoder_rejects_oversize_and_wrong_rate():
 def test_end_to_end_over_the_air():
     """encode_frame -> modulate -> dechirp -> demod -> decode_frame, the
     decodable chain (tests/e2e_chain_test.cpp:62-114 semantics)."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem \
+    from lora_sdr_lightweight_standalone_library_clean.models.modem \
         import dechirp
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.tones \
+    from lora_sdr_lightweight_standalone_library_clean.models.tones \
         import demodulate_tones
     params = LoraParams(sf=8, cr="4/6")
     payload = rng_bytes(14, seed=5)
     sym = frame.encode_frame(payload, params)
     re, im = modulate(sym, params)
-    res = demodulate_tones(*dechirp(re, im, params), params, backend="jnp")
+    res = demodulate_tones(*dechirp(re, im, params), params)
     out = frame.decode_frame(np.asarray(res.symbols), params)
     assert bool(out.crc_ok)
     np.testing.assert_array_equal(np.asarray(out.payload), payload)
@@ -173,7 +173,7 @@ def test_sf_below_seven_rejected():
 
 
 def test_crc_dynamic_matches_static():
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem \
+    from lora_sdr_lightweight_standalone_library_clean.models.modem \
         import crc_sx1272
     data = rng_bytes(32, seed=13)
     for ln in (0, 1, 7, 32):

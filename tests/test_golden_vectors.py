@@ -7,13 +7,9 @@ from the snapshot, .MISSING_LARGE_BLOBS).
 import numpy as np
 import pytest
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops import codes
-from lora_sdr_lightweight_standalone_library_clean_tpu.utils import vectors
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
+from lora_sdr_lightweight_standalone_library_clean.ops import codes
+from lora_sdr_lightweight_standalone_library_clean.utils import vectors
+import lora_sdr_lightweight_standalone_library_clean as L
 
 from conftest import reference_golden
 
@@ -98,7 +94,7 @@ def test_detection_golden():
     noise floor in every block."""
     recs = vectors.read_detection_tests(_need("detection_tests.bin"))
     assert len(recs) == 6
-    from lora_sdr_lightweight_standalone_library_clean_tpu.ops.detect import detect_ri
+    from lora_sdr_lightweight_standalone_library_clean.ops.detect import detect_ri
     for rec in recs:
         n = 1 << rec["sf"]
         iq = rec["iq"].astype(np.complex64)

@@ -6,15 +6,11 @@ of error_code_test.cpp.
 import numpy as np
 import pytest
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-from lora_sdr_lightweight_standalone_library_clean_tpu.models import lorawan
-from lora_sdr_lightweight_standalone_library_clean_tpu.models.lorawan import (
+from lora_sdr_lightweight_standalone_library_clean.models import lorawan
+from lora_sdr_lightweight_standalone_library_clean.models.lorawan import (
     Frame, MType, compute_mic, build_frame, parse_frame,
     aes128_encrypt_block, _aes_encrypt_py, _cmac_py)
-from lora_sdr_lightweight_standalone_library_clean_tpu.utils.errors import (
+from lora_sdr_lightweight_standalone_library_clean.utils.errors import (
     RangeError, MicMismatchError)
 
 
@@ -111,7 +107,7 @@ def test_fopts_overrun():
     body = bytes([0, 0, 0, 0, 0, 0x05, 0, 0])
     mic = compute_mic(key, True, 0, 0, body)
     wire = body + mic.to_bytes(4, "little")
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import encode
+    from lora_sdr_lightweight_standalone_library_clean.models.modem import encode
     syms = encode(np.frombuffer(wire, np.uint8)[None])[0]
     with pytest.raises(RangeError):
         parse_frame(key, np.asarray(syms))

@@ -7,10 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
-from lora_sdr_lightweight_standalone_library_clean_tpu.ops import codes
+import lora_sdr_lightweight_standalone_library_clean as L
+from lora_sdr_lightweight_standalone_library_clean.ops import codes
 import oracle
 
 
@@ -52,12 +50,11 @@ def test_e2e_chain(profile):
 
 @pytest.mark.slow
 def test_modulate_mxu_matches_vpu():
-    """The MXU tone-matmul synthesis (the osr==1 default) must agree with
-    the closed-form VPU phases — both are float32 roundings of the same
-    exact integer phase.  Tolerance covers CPU bf16-fastmath matmul drift
-    (see tests/test_pallas.py docstring); in true f32 the paths agree to
-    ~1e-6."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.ops.chirp import (
+    """The tone-matmul synthesis (the osr==1 default) must agree with the
+    closed-form phases — both are float32 roundings of the same exact
+    integer phase.  Tolerance covers CPU matmul drift on hosts whose BLAS
+    rounds float32 products; in true f32 the paths agree to ~1e-6."""
+    from lora_sdr_lightweight_standalone_library_clean.ops.chirp import (
         modulate_ri)
     rng = np.random.default_rng(11)
     for sf, bs in [(7, 1), (8, 1), (9, 2), (11, 4), (12, 4)]:
@@ -216,7 +213,7 @@ def test_estimate_and_compensate_offsets():
 
 
 def test_jit_cache_stability():
-    """Same-shape calls must not retrace (the TPU analogue of the reference's
+    """Same-shape calls must not retrace (the JAX analogue of the reference's
     zero-runtime-allocation rule, SURVEY §5.2)."""
     p = L.LoraParams(sf=7)
 
@@ -237,10 +234,8 @@ def test_jit_cache_stability():
 
 
 def test_modulate_dechirped_equals_modulate_then_dechirp():
-    """The fused producer (modulate_dechirped) matches the two-step
-    modulate -> external dechirp chain on every backend; on TPU the
-    Pallas fused-dechirp variant is additionally covered by
-    tests/test_pallas.py::test_tx_kernel_matches_mxu_modulate."""
+    """The producer (modulate_dechirped) matches the two-step
+    modulate -> external dechirp chain."""
     for sf in (7, 10):
         p = L.LoraParams(sf=sf)
         rng = np.random.default_rng(sf)
@@ -249,3 +244,36 @@ def test_modulate_dechirped_equals_modulate_then_dechirp():
         dr, di = L.dechirp(*L.modulate(syms, p, amplitude=0.5), p)
         np.testing.assert_allclose(np.asarray(fr), np.asarray(dr), atol=4e-6)
         np.testing.assert_allclose(np.asarray(fi), np.asarray(di), atol=4e-6)
+
+
+@pytest.mark.parametrize("shift", ["-step", "-1", "0", "1", "step"])
+@pytest.mark.parametrize("sf", [7, 10])
+def test_timing_shift_clamps_match_reference(sf, shift):
+    """The symbol windows demodulate / demodulate_tones (decimated) and
+    demodulate_wide (full rate) detect follow the timing-shift clamps of
+    phy.cpp:209-216, edge symbols included, batched and unbatched."""
+    from lora_sdr_lightweight_standalone_library_clean.models.modem import (
+        _timing_shifted_windows)
+    for osr in (1, 2):
+        p = L.LoraParams(sf=sf, osr=osr)
+        step, s = p.step, 5
+        t = {"-step": -step, "-1": -1, "0": 0, "1": 1, "step": step}[shift]
+        rng = np.random.default_rng(sf * 10 + osr)
+        xr = rng.standard_normal((3, s * step)).astype(np.float32)
+        xi = rng.standard_normal((3, s * step)).astype(np.float32)
+        t_off = jnp.full(3, t, jnp.int32)
+        dec = _timing_shifted_windows(xr, xi, t_off, s, step, osr, p.n)
+        full = _timing_shifted_windows(xr, xi, t_off, s, step, osr, p.n,
+                                       decimate=False)
+        one = _timing_shifted_windows(xr[1], xi[1], t_off[1], s, step, osr,
+                                      p.n)
+        for b in range(3):
+            want_full, want_dec = oracle.timing_shifted_windows_ref(
+                xr[b] + 1j * xi[b], t, step, osr)
+            np.testing.assert_array_equal(
+                np.asarray(dec[0][b]) + 1j * np.asarray(dec[1][b]), want_dec)
+            np.testing.assert_array_equal(
+                np.asarray(full[0][b]) + 1j * np.asarray(full[1][b]),
+                want_full)
+        np.testing.assert_array_equal(np.asarray(one[0]),
+                                      np.asarray(dec[0][1]))

@@ -1,4 +1,4 @@
-"""End-to-end streaming RX: continuous stream -> payloads (VERDICT r1 #1).
+"""End-to-end streaming RX: continuous stream -> payloads.
 
 The flagship capability test: K packets at arbitrary (sub-symbol, even
 sub-stride) sample offsets inside a long noisy stream are recovered
@@ -11,13 +11,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
-from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (
+import lora_sdr_lightweight_standalone_library_clean as L
+from lora_sdr_lightweight_standalone_library_clean.models.modem import (
     crc_sx1272)
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel import mesh as M
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel.receiver import (
+from lora_sdr_lightweight_standalone_library_clean.parallel import mesh as M
+from lora_sdr_lightweight_standalone_library_clean.parallel.receiver import (
     receive_stream, stream_rx_init, packet_samples)
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -162,3 +160,17 @@ def test_jit_stability():
     np.testing.assert_array_equal(np.asarray(pkts2.payload)[0], payloads2[0])
     # second chunk's global start accounts for the carried offset
     assert int(np.asarray(pkts2.start)[0]) == 16384 + 4096
+
+
+@pytest.mark.parametrize("d", [14, 15, 16, 17])
+def test_half_stride_misaligned_packets_recovered(d):
+    """Packets whose start falls about half a stride from every scan
+    window: the second sync window then carries the first sync chirp's
+    tail and sits near 5 dB SNR, which the default gate must admit."""
+    offsets = [1024 + d, 6144 + d, 11264 + d]
+    sr, si, payloads = build_stream(offsets)
+    pkts, _ = recover(sr, si)
+    valid = np.asarray(pkts.valid)
+    np.testing.assert_array_equal(np.sort(np.asarray(pkts.start)[valid]),
+                                  offsets)
+    assert bool(np.all(np.asarray(pkts.crc_ok)[valid]))

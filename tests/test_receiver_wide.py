@@ -1,5 +1,4 @@
-"""Wide streaming RX: continuous BW-250/500 streams -> payloads (VERDICT
-r3 task #1).
+"""Wide streaming RX: continuous BW-250/500 streams -> payloads.
 
 The reference cannot decode BW-250/500 at all (its decimating detector's
 symbol map loses the top log2(bw_scale) bits, SURVEY §4.4.2 — down-chirp at
@@ -17,13 +16,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
-from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (
+import lora_sdr_lightweight_standalone_library_clean as L
+from lora_sdr_lightweight_standalone_library_clean.models.modem import (
     crc_sx1272)
-from lora_sdr_lightweight_standalone_library_clean_tpu.models import frame
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel.receiver import (
+from lora_sdr_lightweight_standalone_library_clean.models import frame
+from lora_sdr_lightweight_standalone_library_clean.parallel.receiver import (
     receive_stream, receive_stream_frames, stream_rx_init,
     stream_frames_init, packet_samples)
 

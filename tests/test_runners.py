@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PKG = "lora_sdr_lightweight_standalone_library_clean_tpu"
+PKG = "lora_sdr_lightweight_standalone_library_clean"
 ENV = dict(os.environ, JAX_PLATFORMS="cpu",
            PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
@@ -103,7 +103,7 @@ def test_generate_vectors_manifest(tmp_path):
     # offset compensation, so it is not post_interleave either.)
     import numpy as np
 
-    from lora_sdr_lightweight_standalone_library_clean_tpu.ops import codes
+    from lora_sdr_lightweight_standalone_library_clean.ops import codes
     demod = np.loadtxt(out / "sf7_bw125" / "demod_symbols.csv", dtype=int)
     deint = codes.diagonal_deinterleave(demod.astype(np.uint16), 7, 4)
     dec = codes.decode_hamming84(deint[:16])
@@ -117,7 +117,7 @@ def test_mt19937_payload_bit_exact():
     Known answer captured from the built reference binary (seed=3, 8 bytes);
     with it, payload/pre_interleave/post_interleave stage dumps SHA256-match
     the reference's dir-for-dir (scripts/compare_vectors.py)."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.runners.vector_dump import (
+    from lora_sdr_lightweight_standalone_library_clean.runners.vector_dump import (
         _mt19937_payload)
     got = _mt19937_payload(3, 8)
     assert bytes(got).hex() == "8d12b5d74a1f8291"
@@ -145,8 +145,8 @@ def test_stream_rx_runner(tmp_path):
     line per packet with position, CRC verdict and payload."""
     import jax.numpy as jnp
 
-    import lora_sdr_lightweight_standalone_library_clean_tpu as L
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (
+    import lora_sdr_lightweight_standalone_library_clean as L
+    from lora_sdr_lightweight_standalone_library_clean.models.modem import (
         crc_sx1272)
 
     p = L.LoraParams(sf=7)
@@ -218,8 +218,8 @@ def test_framed_vector_dump(tmp_path):
 @pytest.mark.slow
 def test_framed_stream_rx_runner(tmp_path):
     """stream_rx --framed recovers mixed-length frames from a capture."""
-    import lora_sdr_lightweight_standalone_library_clean_tpu as L
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models import frame
+    import lora_sdr_lightweight_standalone_library_clean as L
+    from lora_sdr_lightweight_standalone_library_clean.models import frame
 
     p = L.LoraParams(sf=7, cr="4/8")
     rng = np.random.default_rng(0)
@@ -264,8 +264,8 @@ def test_wide_stream_rx_runner(tmp_path):
     decodes the profiles the reference's own chain cannot round-trip."""
     import jax.numpy as jnp
 
-    import lora_sdr_lightweight_standalone_library_clean_tpu as L
-    from lora_sdr_lightweight_standalone_library_clean_tpu.models.modem import (
+    import lora_sdr_lightweight_standalone_library_clean as L
+    from lora_sdr_lightweight_standalone_library_clean.models.modem import (
         crc_sx1272)
 
     p = L.LoraParams(sf=9, bw=250000, osr=2)

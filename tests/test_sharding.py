@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the forced 8-device CPU mesh.
 
-Validates the designed-for-TPU parallelism: data-parallel packet sharding
+Validates the multi-device parallelism: data-parallel packet sharding
 over 'dp' and overlap-save stream scanning over 'sp' with ppermute halos.
 """
 import numpy as np
@@ -9,11 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel import mesh as M
-from lora_sdr_lightweight_standalone_library_clean_tpu.parallel.streaming import (
+import lora_sdr_lightweight_standalone_library_clean as L
+from lora_sdr_lightweight_standalone_library_clean.parallel import mesh as M
+from lora_sdr_lightweight_standalone_library_clean.parallel.streaming import (
     stream_scan, find_sync_starts)
 
 
@@ -98,7 +96,7 @@ def test_find_sync_starts():
 
 def test_find_sync_starts_noise_only():
     """A pure-noise stream must yield zero sync starts at the default gate
-    (VERDICT r1 weak #4): noise windows have ~0 dB SNR at every bin."""
+   : noise windows have ~0 dB SNR at every bin."""
     p = L.LoraParams(sf=7)
     rng = np.random.default_rng(99)
     total = 64 * p.step

@@ -1,5 +1,5 @@
 """Payload-level roundtrip proof for ALL seven stock profiles at a
-self-consistent osr (VERDICT r1 #4).
+self-consistent osr.
 
 The reference's N-bin decimating detector maps symbols to ``sym*bw_scale
 mod N``, losing the top log2(bw_scale) bits — its own e2e chain fails for
@@ -18,9 +18,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-import lora_sdr_lightweight_standalone_library_clean_tpu as L
+import lora_sdr_lightweight_standalone_library_clean as L
 
 
 def roundtrip(params, payloads, impair=None, wide=False):
@@ -56,7 +54,7 @@ def test_all_profiles_payload_roundtrip(profile):
 @pytest.mark.parametrize("sf,bw,osr", [(9, 250000, 2), (12, 500000, 4)])
 def test_wide_roundtrip_with_impairments(sf, bw, osr):
     """Wide receiver under AWGN + CFO + sub-sample time shift."""
-    from lora_sdr_lightweight_standalone_library_clean_tpu.ops import channel
+    from lora_sdr_lightweight_standalone_library_clean.ops import channel
     params = L.LoraParams(sf=sf, bw=bw, osr=osr)
     rng = np.random.default_rng(7)
     payloads = rng.integers(0, 256, (8, 8)).astype(np.uint8)
